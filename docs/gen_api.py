@@ -64,8 +64,8 @@ MODULE_SECTIONS = [
      "Affine/CRS transforms, equidistant resampling, log-profile fits, discharge integration."),
     ("PIV ops", "pyorc_tpu.ops.piv",
      "XLA PIV pipeline: windowed cross-correlation, subpixel peaks, streaming ensemble."),
-    ("Fused TPU kernels", "pyorc_tpu.ops.piv_pallas",
-     "Pallas kernels: per-pair sliced/tileband correlation, fused ensemble, pair blocking."),
+    ("PIV reference", "pyorc_tpu.ops.piv_reference",
+     "Plain float64 NumPy PIV that the tests and chip_smoke.py check the XLA path against."),
     ("STIV ops", "pyorc_tpu.ops.stiv",
      "Space-time image velocimetry: batched line sampling + structure-tensor streak angles."),
     ("Multi-device parallel", "pyorc_tpu.parallel.piv",

@@ -5,9 +5,9 @@ Geul river clip with its camera configuration, preprocess frames
 (temporal-mean normalization), orthorectify to the measurement grid, run
 FFT cross-correlation PIV, and write the velocity Dataset to netCDF.
 
-On TPU the whole frames->ortho->PIV chain runs as fused device kernels;
-on CPU the same code routes through the chunked XLA fallback (slower but
-identical semantics), so the example runs anywhere.
+The frames->ortho->PIV chain runs as jitted XLA programs on the default
+JAX device (a GPU, or the CPU with the same semantics), so the example runs
+anywhere.
 
 Run:  python examples/02_process_velocimetry.py [output_dir] [n_frames]
 """

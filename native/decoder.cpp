@@ -1,7 +1,7 @@
 // Native video decode pump for pyorc_tpu.
 //
 // Multi-threaded FFmpeg (libavformat/libavcodec/libswscale) decoder exposed
-// through a C ABI for ctypes. This is the TPU build's native replacement for
+// through a C ABI for ctypes. This is the native replacement for
 // the reference's cv2.VideoCapture decode loop (reference
 // pyorc/api/video.py:136-211, pyorc/cv.py:876-990): the I/O pump that feeds
 // decoded frame batches to the device pipeline. Decoding runs with

@@ -1,11 +1,11 @@
-"""pyorc_tpu — TPU-native video velocimetry (LSPIV) framework.
+"""pyorc_tpu — video velocimetry (LSPIV) on the GPU with JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of pyOpenRiverCam
-(reference: localdevices/pyorc): video of a river in, surface velocity fields
-and discharge out. The compute path (frame preprocessing, orthorectification,
-FFT-based PIV cross-correlation, mask chains, transect reductions) runs as
-fused XLA/Pallas kernels on TPU; the geometry core (camera model, PnP, CRS) is
-host-side float64 numpy; IO (video decode, netCDF, GeoTIFF) is host-side.
+A ground-up JAX/XLA rebuild of the capabilities of pyOpenRiverCam (reference:
+localdevices/pyorc): video of a river in, surface velocity fields and
+discharge out. Frame preprocessing, orthorectification and FFT-based PIV
+cross-correlation run as jitted XLA programs on the device (an NVIDIA GPU);
+mask chains and transect reductions, the geometry core (camera model, PnP,
+CRS, float64 numpy) and IO (video decode, netCDF, GeoTIFF) run on the host.
 """
 
 __version__ = "0.1.0"

@@ -557,15 +557,11 @@ class CameraConfig:
 
     def map_mean_idx_img_ortho(self, x, y, z) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Group-mean index map for oversampled ortho cells. Reference cameraconfig.py:793-860."""
-        import cv2
-
         coli, rowi = np.meshgrid(np.arange(self.width), np.arange(self.height))
         poly = self.get_bbox(mode="camera", z_a=z)
-        mask = np.zeros((self.height, self.width), dtype=np.uint8)
         ring = np.asarray(poly.exterior.coords, dtype=np.float64)
         ring = ring[np.isfinite(ring).all(axis=1)]
-        cv2.fillPoly(mask, [np.round(ring).astype(np.int32)], 1)
-        mask = mask == 1
+        mask = shapes.fill_polygon((self.height, self.width), np.round(ring).astype(np.int64))
         src_pix = np.column_stack([coli[mask], rowi[mask]])
         if len(src_pix) == 0:
             return np.array([], dtype=np.int64), np.array([], dtype=np.int64), np.array([], dtype=np.int64)

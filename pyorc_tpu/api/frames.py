@@ -411,7 +411,7 @@ class Frames(ORCBase):
             raise ValueError(f"Selected PIV engine {engine} does not exist.")
         if engine != "jax":
             logging.getLogger(__name__).debug(
-                "engine=%r is accepted for recipe compatibility but runs the JAX/TPU engine.",
+                "engine=%r is accepted for recipe compatibility but runs the JAX engine.",
                 engine,
             )
         kwargs = {

@@ -145,6 +145,14 @@ class LazyFrames:
         return f"<LazyFrames {self.shape} {self.dtype} of {self._video.fn}>"
 
 
+def _open_capture(fn):
+    import cv2
+
+    cap = cv2.VideoCapture(fn)
+    cap.set(cv2.CAP_PROP_ORIENTATION_AUTO, 1)
+    return cap
+
+
 class Video:
     """A video file with camera configuration, frame range and water level."""
 
@@ -163,8 +171,6 @@ class Video:
         fps: Optional[float] = None,
         progress: bool = True,
     ):
-        import cv2
-
         assert isinstance(start_frame, (int, type(None))), 'start_frame must be of type "int"'
         assert isinstance(end_frame, (int, type(None))), 'end_frame must be of type "int"'
         self.ms = None
@@ -190,13 +196,22 @@ class Video:
         if not os.path.isfile(fn):
             raise IOError(f"Video file {fn} does not exist.")
 
-        cap = cv2.VideoCapture(fn)
-        cap.set(cv2.CAP_PROP_ORIENTATION_AUTO, 1)
-        self.height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
-        self.width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        # metadata comes from the native decoder when it reads this file;
+        # cv2 opens the file only when it is the decoder
+        reader = self._native_open(fn) if lazy else None
+        cap = None
+        if reader is not None:
+            self.height, self.width = reader.height, reader.width
+            frame_count = reader.frame_count - 1
+        else:
+            import cv2
+
+            cap = _open_capture(fn)
+            self.height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+            self.width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+            frame_count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) - 1
         if self.stabilize is not None:
             self.set_mask_from_exterior(self.stabilize)
-        frame_count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) - 1
         if frame_count <= 0:
             if lazy:
                 raise IOError(
@@ -221,9 +236,10 @@ class Video:
             end_frame = self.frame_count
         self.rotation = rotation
         time = frame_number = None
-        if lazy:
-            time, frame_number = self._native_time_scan(fn, start_frame, end_frame, fps)
+        if reader is not None:
+            time, frame_number = self._native_time_scan(reader, start_frame, end_frame, fps)
         if time is None:
+            cap = cap or _open_capture(fn)
             time, frame_number, frames = vr.get_time_frames(
                 cap,
                 start_frame,
@@ -251,10 +267,17 @@ class Video:
         self.start_frame = start_frame
         if self.stabilize is not None:
             self.get_ms(cap)
-        self.fps = fps if fps is not None else cap.get(cv2.CAP_PROP_FPS)
+        if fps is None and cap is None:
+            fps = reader.fps
+        elif fps is None:
+            import cv2
+
+            fps = cap.get(cv2.CAP_PROP_FPS)
+        self.fps = fps
         self.h_a = h_a
         self.fn = fn
-        cap.release()
+        if cap is not None:
+            cap.release()
 
     def __getstate__(self):
         # the native decoder handle (ctypes) is not picklable/deep-copyable;
@@ -401,44 +424,50 @@ class Video:
 
     # -- decode ------------------------------------------------------------
 
-    def _native_time_scan(self, fn, start_frame, end_frame, fps):
+    @staticmethod
+    def _native_open(fn):
+        """A native decoder (FFmpeg libav via ctypes) on ``fn``, or None when
+        it is disabled (PYORC_TPU_NATIVE_DECODE=0), unbuilt or cannot open
+        the file; cv2 then reads the video."""
+        if os.environ.get("PYORC_TPU_NATIVE_DECODE", "1") == "0":
+            return None
+        from ..io import native_decoder
+
+        if not native_decoder.available():
+            return None
+        try:
+            return native_decoder.NativeVideoReader(fn)
+        except IOError:
+            return None
+
+    def _native_time_scan(self, reader, start_frame, end_frame, fps):
         """Timestamp scan via the native pts index (one packet scan, NO
         decoding) instead of decoding every frame like the cv2 scan
         (reference pyorc/cv.py:923-990). Returns (None, None) when the
-        native decoder is unavailable so the caller falls back.
+        index is unusable so the caller falls back to cv2.
         """
-        if os.environ.get("PYORC_TPU_NATIVE_DECODE", "1") == "0":
+        ts = reader.timestamps()
+        if ts is None or len(ts) == 0:
+            reader.close()
             return None, None
-        try:
-            from ..io import native_decoder
-
-            if not native_decoder.available():
-                return None, None
-            reader = native_decoder.NativeVideoReader(fn)
-            ts = reader.timestamps()
-            if ts is None or len(ts) == 0:
-                reader.close()
-                return None, None
-            end = int(min(end_frame, len(ts) - 1))
-            # tail validation: the index counts packets; confirm the last
-            # frame actually decodes, walking back over a corrupt tail
-            while end >= start_frame and reader.read(end, 1, gray=True).shape[0] == 0:
-                end -= 1
-            if end < start_frame:
-                reader.close()
-                return None, None
-            if int(os.environ.get("PYORC_TPU_DECODE_WORKERS", "1")) > 1:
-                reader.close()  # the _native_reader property builds the parallel pump
-            else:
-                self._native_reader_cache = reader
-            frame_number = list(range(start_frame, end + 1))
-            if fps is not None:
-                time = [n * 1000.0 / fps for n in frame_number]
-            else:
-                time = [float(ts[n]) for n in frame_number]
-            return time, frame_number
-        except Exception:
+        end = int(min(end_frame, len(ts) - 1))
+        # tail validation: the index counts packets; confirm the last
+        # frame actually decodes, walking back over a corrupt tail
+        while end >= start_frame and reader.read(end, 1, gray=True).shape[0] == 0:
+            end -= 1
+        if end < start_frame:
+            reader.close()
             return None, None
+        if int(os.environ.get("PYORC_TPU_DECODE_WORKERS", "1")) > 1:
+            reader.close()  # the _native_reader property builds the parallel pump
+        else:
+            self._native_reader_cache = reader
+        frame_number = list(range(start_frame, end + 1))
+        if fps is not None:
+            time = [n * 1000.0 / fps for n in frame_number]
+        else:
+            time = [float(ts[n]) for n in frame_number]
+        return time, frame_number
 
     @property
     def _native_reader(self):
@@ -502,8 +531,6 @@ class Video:
 
     def _decode_frames(self, positions: np.ndarray, method: str) -> np.ndarray:
         """Decode frames at the given positions (indices into frame_number)."""
-        import cv2
-
         positions = np.atleast_1d(positions)
         if self._eager_frames is None:
             native = self._decode_frames_native(positions, method)
@@ -517,6 +544,8 @@ class Video:
                     img = vr.warp_affine(img, self.ms[p])
                 imgs.append(vr.color_scale(img, method))
             return np.asarray(imgs)
+        import cv2
+
         cap = cv2.VideoCapture(self.fn)
         imgs = []
         prev = None

@@ -17,7 +17,7 @@ from . import cli_utils, log
 def print_info(ctx, param, value):
     if not value:
         return {}
-    click.echo(f"pyorc-tpu version: {__version__} — TPU-native river velocimetry")
+    click.echo(f"pyorc-tpu version: {__version__} — river velocimetry on the GPU")
     ctx.exit()
 
 
@@ -47,7 +47,7 @@ verbose_opt = click.option("--verbose", "-v", count=True, help="Increase verbosi
 )
 @click.pass_context
 def cli(ctx, info, license):  # noqa: A002
-    """Command line interface for pyorc-tpu (TPU-native river velocimetry)."""
+    """Command line interface for pyorc-tpu (river velocimetry on the GPU)."""
     if ctx.obj is None:
         ctx.obj = {}
 

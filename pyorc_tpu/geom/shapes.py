@@ -455,6 +455,69 @@ def points_in_polygon(pts: np.ndarray, ring: np.ndarray) -> np.ndarray:
     return inside
 
 
+def _line_pixels(x1: int, y1: int, x2: int, y2: int):
+    """(cols, rows) of an 8-connected Bresenham line, walked left to right
+    with ties rounded toward the start point (OpenCV's LineIterator rule)."""
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, abs(y2 - y1)
+    sy = -1 if y2 < y1 else 1
+    if dy > dx:
+        k = np.arange(dy + 1)
+        return x1 - (-(2 * k * dx - dy) // (2 * dy)), y1 + sy * k
+    k = np.arange(dx + 1)
+    n = -(-(2 * k * dy - dx) // (2 * dx)) if dx else 0 * k
+    return x1 + k, y1 + sy * n
+
+
+def fill_polygon(shape: Tuple[int, int], ring: np.ndarray) -> np.ndarray:
+    """Boolean raster of a polygon with integer vertices, drawn by the pixel
+    rule of ``cv2.fillPoly`` (8-connected outline, no sub-pixel shift).
+
+    The outline is an 8-connected Bresenham line per edge. Inside it, row
+    ``y`` is filled between each even-odd pair of edge crossings at the
+    pixel centres, from the ceiling of the left crossing to the floor of the
+    right, where an edge from ``y0`` to ``y1`` crosses rows ``y0 <= y < y1``;
+    crossings are kept in OpenCV's 16.16 fixed point. Within the image this is
+    ``cv2.fillPoly``'s mask pixel for pixel; parts of the polygon outside the
+    image are dropped.
+    """
+    h, w = shape
+    mask = np.zeros((h, w), dtype=bool)
+    pts = np.asarray(ring, dtype=np.int64)[:, :2]
+    p0, p1 = np.roll(pts, 1, axis=0), pts
+    for (xa, ya), (xb, yb) in zip(p0.tolist(), p1.tolist()):
+        cols, rows = _line_pixels(xa, ya, xb, yb)
+        ok = (cols >= 0) & (cols < w) & (rows >= 0) & (rows < h)
+        mask[rows[ok], cols[ok]] = True
+    # scanline interior: every (row, fixed-point x) crossing of a non-flat edge
+    sloped = p0[:, 1] != p1[:, 1]
+    top = np.where((p0[:, 1] < p1[:, 1])[:, None], p0, p1)[sloped]
+    bot = np.where((p0[:, 1] < p1[:, 1])[:, None], p1, p0)[sloped]
+    if len(top) < 2:
+        return mask
+    num = (bot[:, 0] - top[:, 0]) << 16
+    den = bot[:, 1] - top[:, 1]
+    step = np.sign(num) * (np.abs(num) // den)  # C division: truncate toward zero
+    n_rows = den
+    edge = np.repeat(np.arange(len(top)), n_rows)
+    k = np.arange(n_rows.sum()) - np.repeat(np.cumsum(n_rows) - n_rows, n_rows)
+    ys = top[edge, 1] + k
+    xs = (top[edge, 0] << 16) + k * step[edge]
+    order = np.lexsort((xs, ys))
+    ys, xs = ys[order], xs[order]
+    # rows hold an even number of crossings; pair them left to right
+    y, xl, xr = ys[0::2], xs[0::2], xs[1::2]
+    a = (xl + (1 << 16) - 1) >> 16
+    b = xr >> 16
+    keep = (y >= 0) & (y < h) & (a < w) & (b >= 0) & (a <= b)
+    y, a, b = y[keep], np.maximum(a[keep], 0), np.minimum(b[keep], w - 1)
+    runs = np.zeros((h, w + 1), dtype=np.int32)
+    np.add.at(runs, (y, a), 1)
+    np.add.at(runs, (y, b + 1), -1)
+    return mask | (np.cumsum(runs[:, :w], axis=1) > 0)
+
+
 def _seg_intersect(p1, p2, p3, p4) -> Optional[np.ndarray]:
     d1 = p2 - p1
     d2 = p4 - p3

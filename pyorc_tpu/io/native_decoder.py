@@ -1,7 +1,10 @@
 """ctypes bindings for the native FFmpeg decode pump (native/decoder.cpp).
 
-Builds the shared library on first use if a compiler is available; falls back
-silently (callers check :func:`available`) to the cv2 decode path otherwise.
+The shared library is built from ``native/decoder.cpp`` alone with
+``make -C native``, on first use when it is missing or older than the source
+(a stale build is never loaded). Where it cannot be built (no compiler or no
+FFmpeg development files) :func:`available` is False and callers decode with
+cv2.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ def _load() -> Optional[ctypes.CDLL]:
         if _LIB is not None:
             return _LIB
         so = _native_dir() / "libpyorc_decoder.so"
-        if not so.is_file() and not _BUILD_TRIED:
+        src = _native_dir() / "decoder.cpp"
+        stale = not so.is_file() or so.stat().st_mtime < src.stat().st_mtime
+        if stale:
+            if _BUILD_TRIED:
+                return None
             _BUILD_TRIED = True
             try:
                 subprocess.run(
@@ -39,10 +46,8 @@ def _load() -> Optional[ctypes.CDLL]:
                     capture_output=True,
                     timeout=120,
                 )
-            except Exception:
+            except (OSError, subprocess.SubprocessError):
                 return None
-        if not so.is_file():
-            return None
         try:
             lib = ctypes.CDLL(str(so))
         except OSError:

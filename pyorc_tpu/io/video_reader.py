@@ -19,10 +19,12 @@ __all__ = ["color_scale", "get_frame", "get_time_frames", "get_rotation_code", "
 
 def get_rotation_code(rotation):
     """Degrees (0/90/180/270) -> OpenCV rotation code. Reference pyorc/helpers.py:245-268."""
-    import cv2
-
     if rotation not in [0, 90, 180, 270, None]:
         raise ValueError(f"Rotation code must be in allowed codes 0, 90, 180 or 270. Provided code is {rotation}")
+    if rotation in (0, None):
+        return None
+    import cv2
+
     if rotation == 90:
         return cv2.ROTATE_90_CLOCKWISE
     elif rotation == 180:

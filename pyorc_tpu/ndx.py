@@ -1,6 +1,6 @@
 """ndx — a minimal, dependency-free labeled N-D array data model.
 
-This is the TPU framework's native replacement for the xarray DataArray/Dataset
+This is the framework's own replacement for the xarray DataArray/Dataset
 data model the reference library (pyorc) builds on (reference: pyorc uses
 ``xr.DataArray``/``xr.Dataset`` throughout, e.g. ``pyorc/api/video.py:503-534``,
 ``pyorc/velocimetry/ffpiv.py:325-337``). Rather than pulling in xarray+dask, we

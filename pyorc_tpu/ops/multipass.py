@@ -8,10 +8,10 @@ deformation — frame A sampled at ``x - d/2`` and frame B at ``x + d/2`` —
 cancels the first-order truncation bias of single-pass FFT PIV (the 0.1-0.2 px
 pull toward zero on uniform shifts) and keeps valid correlation under shear.
 
-TPU-first construction: every pass is static-shaped; the dense displacement
-field is a bilinear image-sized gather (``map_coordinates`` lowers to XLA
-gathers), pair deformation is one more gather, and the correlation itself
-reuses the batched matmul-DFT/FFT pipeline from :mod:`pyorc_tpu.ops.piv`.
+Every pass is static-shaped; the dense displacement field is a bilinear
+image-sized gather (``map_coordinates`` lowers to XLA gathers), pair
+deformation is one more gather, and the correlation itself reuses the batched
+FFT/matmul-DFT pipeline from :mod:`pyorc_tpu.ops.piv`.
 The whole cascade jits into a single XLA program; there is no data-dependent
 control flow. Outlier handling between passes is the Westerweel–Scarano
 normalized median test, computed with shifted-stack medians (no sorting
@@ -178,66 +178,6 @@ def _piv_multipass_impl(imgs, dim_size, schedule, overlaps, n_rows, n_cols, sign
     return u, v, corr_max.reshape(-1, n_rows, n_cols), s2n.reshape(-1, n_rows, n_cols)
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7))
-def _deform_stage(a_stack, b_stack, u, v, rows_prev, cols_prev, rows_k, cols_k):
-    """Jitted pass transition: dense predictor -> symmetric deformation ->
-    predictor resampled to the next pass's window grid."""
-    h, w = a_stack.shape[-2], a_stack.shape[-1]
-    dr_dense = _grid_to_dense(-v, rows_prev, cols_prev, h, w)
-    dc_dense = _grid_to_dense(u, rows_prev, cols_prev, h, w)
-    a_k, b_k = jax.vmap(_deform_pair)(a_stack, b_stack, dr_dense, dc_dense)
-    u_pred = _grid_to_grid(u, rows_prev, cols_prev, rows_k, cols_k)
-    v_pred = _grid_to_grid(v, rows_prev, cols_prev, rows_k, cols_k)
-    return a_k, b_k, u_pred, v_pred
-
-
-def _piv_multipass_fused(imgs, dim_size, schedule, overlaps, signal_threshold, interpret):
-    """Host-level pass loop with the fused Pallas kernel per correlation.
-
-    The deformed pair stacks are no longer consecutive frames, so each pass
-    interleaves (a0, b0, a1, b1, ...) and runs the kernel with pair_stride=2.
-    Deformation/validation stay jitted XLA stages between kernel launches.
-    """
-    from . import piv_pallas
-
-    h, w = dim_size
-    frames = jnp.asarray(imgs).astype(jnp.float32)
-    a_stack, b_stack = frames[:-1], frames[1:]
-    n_pairs = a_stack.shape[0]
-
-    u = v = cmax = s2n = None
-    rows_prev = cols_prev = None
-    for k, (ws, ov) in enumerate(zip(schedule, overlaps)):
-        cols_k, rows_k = win.get_rect_coordinates(dim_size, ws, ws, ov)
-        nr_k, nc_k = len(rows_k), len(cols_k)
-        if k == 0:
-            a_k, b_k = a_stack, b_stack
-            u_pred = jnp.zeros((n_pairs, nr_k, nc_k), jnp.float32)
-            v_pred = jnp.zeros_like(u_pred)
-        else:
-            a_k, b_k, u_pred, v_pred = _deform_stage(
-                a_stack, b_stack, u, v,
-                tuple(float(r) for r in rows_prev), tuple(float(c) for c in cols_prev),
-                tuple(float(r) for r in rows_k), tuple(float(c) for c in cols_k),
-            )
-        interleaved = jnp.stack([a_k, b_k], axis=1).reshape((2 * n_pairs,) + a_k.shape[1:])
-        du, dv, cmax, s2n = piv_pallas.piv_pairs_fused(
-            interleaved, dim_size, ws, ov, nr_k, nc_k, signal_threshold,
-            interpret=interpret, pair_stride=2,
-        )
-        u = u_pred + jnp.asarray(du)
-        v = v_pred + jnp.asarray(dv)
-        if k < len(schedule) - 1:
-            u, v = _median_validate_jit(u, v)
-        rows_prev, cols_prev = rows_k, cols_k
-    return u, v, jnp.asarray(cmax), jnp.asarray(s2n)
-
-
-@jax.jit
-def _median_validate_jit(u, v):
-    return _median_validate(u, v)
-
-
 def piv_multipass(
     imgs,
     dim_size: Tuple[int, int],
@@ -248,41 +188,15 @@ def piv_multipass(
     passes: int = 2,
     signal_threshold: Optional[float] = None,
     corr_method: str = "auto",
-    engine: str = "auto",
 ):
     """Multi-pass PIV: (u, v, corr_max, s2n), each [T-1, n_rows, n_cols].
 
-    ``engine``: 'auto' runs each pass's correlation through the fused Pallas
-    kernel on TPU backends (deformation stays XLA) and the single-jit XLA
-    cascade elsewhere; 'xla' forces the cascade; 'fused'/'fused-interpret'
-    force the kernel path (interpret mode for CPU testing).
+    The whole cascade is one jitted XLA program; ``corr_method`` 'auto' takes
+    :func:`pyorc_tpu.ops.piv.corr_route`'s choice for the backend.
     """
-    method = piv_ops.default_corr_method() if corr_method == "auto" else corr_method
     schedule = tuple(multipass_window_sizes(tuple(win._as2(window_size)), passes))
     overlaps = tuple(tuple(s // 2 for s in ws) for ws in schedule[:-1]) + (tuple(win._as2(overlap)),)
-    if engine == "auto":
-        engine = "fused" if jax.default_backend() not in ("cpu",) else "xla"
-    if engine.startswith("fused"):
-        # geometry/threshold cases the kernel would immediately bounce to XLA
-        # run the single-jit cascade directly: the interleaved fallback would
-        # correlate every (b_i, a_{i+1}) cross pair just to discard it
-        from . import piv_pallas
-
-        finest = schedule[-1]
-        row0, col0 = win.get_window_starts(tuple(dim_size), finest, overlaps[-1])
-        sy = piv_ops._strided_axis_starts(np.asarray(row0), finest[0])
-        sx = piv_ops._strided_axis_starts(np.asarray(col0), finest[1])
-        if signal_threshold is not None or not piv_pallas._fused_geometry_ok(
-            finest[0], finest[1], sy, sx
-        ):
-            engine = "xla"
-    if engine.startswith("fused"):
-        return _piv_multipass_fused(
-            imgs, tuple(dim_size), schedule, overlaps,
-            None if signal_threshold is None else float(signal_threshold),
-            interpret=(engine == "fused-interpret"),
-        )
     return _piv_multipass_impl(
         jnp.asarray(imgs), tuple(dim_size), schedule, overlaps, n_rows, n_cols,
-        None if signal_threshold is None else float(signal_threshold), method,
+        None if signal_threshold is None else float(signal_threshold), piv_ops.corr_route(corr_method),
     )

@@ -1,4 +1,4 @@
-"""FFT-based PIV cross-correlation engine (JAX/XLA, TPU-first).
+"""FFT-based PIV cross-correlation engine (JAX/XLA).
 
 This replaces the reference's external native engine (``ffpiv.cross_corr`` +
 ``ffpiv.u_v_displacement``, numba + rocket-fft; reference call sites
@@ -10,10 +10,12 @@ pipeline:
   -> 3-point Gaussian subpixel peak -> (u, v) displacements
 
 Everything is static-shaped and batched over (frame-pairs x windows), so XLA
-maps the FFTs and elementwise chains onto the TPU efficiently; frame pairs
+fuses the elementwise chains around the FFTs (cuFFT on a GPU); frame pairs
 are embarrassingly parallel and can be sharded over devices (see
 :mod:`pyorc_tpu.parallel`). FP32 throughout — bf16 correlation fails the
-sub-0.01 m/s velocity parity target.
+sub-0.01 m/s velocity parity target, and every matrix product runs at
+``Precision.HIGHEST`` so a GPU never drops to TF32. :func:`corr_route` is the
+one place that picks the correlation method for the running backend.
 
 Semantics notes (ffpiv's internals are not part of this repo's reference
 mount, so the contract is defined here and validated by synthetic-shift
@@ -44,6 +46,7 @@ __all__ = [
     "subpixel_peak",
     "piv_pairs",
     "piv_ensemble_scan",
+    "corr_route",
 ]
 
 
@@ -66,7 +69,7 @@ def extract_windows(frames: jnp.ndarray, row0: np.ndarray, col0: np.ndarray, wy:
     Fast path: for the standard uniform grid whose step divides the window
     size (e.g. 50% overlap), windows are assembled from ``w//step`` shifted
     block reshapes per axis — pure reshapes/slices instead of gathers, which
-    XLA maps onto TPU far better.
+    XLA fuses into plain copies.
 
     Parameters
     ----------
@@ -152,38 +155,52 @@ def _dft_mats(n: int):
     return _DFT_CACHE[n]
 
 
-def default_corr_method() -> str:
-    """'matmul' on TPU-class backends (DFT as MXU matmuls beats XLA's FFT for
-    PIV-sized windows), 'fft' elsewhere."""
-    import jax
+# Correlation method per supported backend. "fft" is XLA's FFT (cuFFT on a
+# GPU); "matmul" is the DFT written as dense products at Precision.HIGHEST.
+# The GPU entry is the faster of the two on an H100 at 16-64 px windows on
+# 1080p frames, as timed by chip_smoke.py (phase 4); see PERF.md.
+_CORR_METHODS = {"cpu": "fft", "gpu": "fft"}
 
+
+def corr_route(corr_method: str = "auto") -> str:
+    """The correlation method the XLA PIV path runs on this backend.
+
+    ``corr_method`` "auto" takes the backend's entry in ``_CORR_METHODS``; an
+    explicit "fft" or "matmul" wins. A backend other than cpu or gpu raises.
+    """
     platform = jax.default_backend()
-    return "matmul" if platform not in ("cpu",) else "fft"
+    if platform not in _CORR_METHODS:
+        raise RuntimeError(
+            f"unsupported JAX backend {platform!r}: pyorc_tpu runs on {sorted(_CORR_METHODS)}"
+        )
+    if corr_method == "auto":
+        return _CORR_METHODS[platform]
+    if corr_method not in ("fft", "matmul"):
+        raise ValueError(f"corr_method must be 'auto', 'fft' or 'matmul', got {corr_method!r}")
+    return corr_method
 
 
 def _corr_raw_matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Circular cross-correlation of demeaned windows via matmul-DFT.
 
-    The 2-D DFT of each window is expressed as dense [n, n] matrix products,
-    which map onto the TPU MXU; for 32-64 px PIV windows this wins over the
-    FFT lowering despite the higher FLOP count. a, b: [..., wy, wx] float32.
+    The 2-D DFT of each window is expressed as dense [n, n] matrix products
+    at ``Precision.HIGHEST`` (float32 throughout; a GPU would otherwise run
+    them in TF32, which keeps about three decimal digits). a, b: [..., wy, wx]
+    float32.
     """
     wy, wx = a.shape[-2], a.shape[-1]
     cy, sy = (jnp.asarray(m) for m in _dft_mats(wy))
     cx, sx = (jnp.asarray(m) for m in _dft_mats(wx))
+    mm = functools.partial(
+        jnp.matmul, precision=jax.lax.Precision.HIGHEST, preferred_element_type=jnp.float32
+    )
 
     def dft2(v):
         # right multiply: columns transform. P + iQ = v @ (Cx + iSx)^T
-        p = jnp.matmul(v, cx.T, preferred_element_type=jnp.float32)
-        q = jnp.matmul(v, sx.T, preferred_element_type=jnp.float32)
+        p = mm(v, cx.T)
+        q = mm(v, sx.T)
         # left multiply: (Cy + iSy) @ (P + iQ)
-        re = jnp.matmul(cy, p, preferred_element_type=jnp.float32) - jnp.matmul(
-            sy, q, preferred_element_type=jnp.float32
-        )
-        im = jnp.matmul(cy, q, preferred_element_type=jnp.float32) + jnp.matmul(
-            sy, p, preferred_element_type=jnp.float32
-        )
-        return re, im
+        return mm(cy, p) - mm(sy, q), mm(cy, q) + mm(sy, p)
 
     a_re, a_im = dft2(a)
     b_re, b_im = dft2(b)
@@ -191,15 +208,9 @@ def _corr_raw_matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     s_re = a_re * b_re + a_im * b_im
     s_im = a_re * b_im - a_im * b_re
     # inverse DFT: (1/N) conj(F_y) @ S @ conj(F_x)^T, real part only
-    u_re = jnp.matmul(cy, s_re, preferred_element_type=jnp.float32) + jnp.matmul(
-        sy, s_im, preferred_element_type=jnp.float32
-    )
-    u_im = jnp.matmul(cy, s_im, preferred_element_type=jnp.float32) - jnp.matmul(
-        sy, s_re, preferred_element_type=jnp.float32
-    )
-    v_re = jnp.matmul(u_re, cx.T, preferred_element_type=jnp.float32) + jnp.matmul(
-        u_im, sx.T, preferred_element_type=jnp.float32
-    )
+    u_re = mm(cy, s_re) + mm(sy, s_im)
+    u_im = mm(cy, s_im) - mm(sy, s_re)
+    v_re = mm(u_re, cx.T) + mm(u_im, sx.T)
     return v_re / (wy * wx)
 
 
@@ -255,8 +266,8 @@ def cross_corr(
         (the correlation planes are always coefficient-normalized).
     signal_threshold : float, optional
         windows whose fraction of non-zero pixels falls below this threshold
-        get NaN correlation planes (compute-all + mask: on TPU masking beats
-        data-dependent skipping).
+        get NaN correlation planes (compute-all + mask keeps shapes static,
+        with no data-dependent skipping).
 
     Returns
     -------
@@ -272,7 +283,7 @@ def cross_corr(
         tuple(win._as2(overlap)),
         bool(normalize),
         None if signal_threshold is None else float(signal_threshold),
-        default_corr_method() if corr_method == "auto" else corr_method,
+        corr_route(corr_method),
     )
     return cols, rows, corr
 
@@ -281,12 +292,16 @@ def cross_corr(
 def _cross_corr_jit(imgs, dim_size, sas, overlap, normalize, signal_threshold, corr_method="fft"):
     row0, col0 = win.get_window_starts(dim_size, sas, overlap)
     frames = imgs.astype(jnp.float32)
-    w = extract_windows(frames, row0, col0, sas[0], sas[1])  # [T, nw, wy, wx]
+    # the named scopes label the device kernels in a profiler trace
+    # (bench.py --trace reduces a trace to these three shares)
+    with jax.named_scope("window_extract"):
+        w = extract_windows(frames, row0, col0, sas[0], sas[1])  # [T, nw, wy, wx]
     if normalize:
         mu = jnp.mean(w, axis=(-2, -1), keepdims=True)
         sd = jnp.std(w, axis=(-2, -1), keepdims=True)
         w = (w - mu) / jnp.maximum(sd, 1e-6)
-    corr = _normalized_corr_planes(w[:-1], w[1:], corr_method)
+    with jax.named_scope("correlate"):
+        corr = _normalized_corr_planes(w[:-1], w[1:], corr_method)
     if signal_threshold is not None:
         signal = jnp.mean(w > 0, axis=(-2, -1))  # fraction of non-zero pixels
         pair_signal = jnp.minimum(signal[:-1], signal[1:])
@@ -308,7 +323,7 @@ def subpixel_peak(corr: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     corr: [..., wy, wx]. Returns (row_peak, col_peak) as float, measured from
     the top-left of the plane. Fully vectorized: argmax + one-pixel-neighbour
     gather + closed-form Gaussian interpolation (no data-dependent control
-    flow, as required for XLA/TPU).
+    flow, so it stays one static-shaped XLA program).
     """
     wy, wx = corr.shape[-2], corr.shape[-1]
     flat = corr.reshape(corr.shape[:-2] + (wy * wx,))
@@ -373,18 +388,20 @@ def _piv_pairs_jit(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshol
     pixels (caller scales by resolution/dt).
     """
     corr = _cross_corr_jit(imgs, dim_size, sas, overlap, False, signal_threshold, corr_method)
-    corr_max, s2n = corr_stats(corr)
-    u, v = u_v_displacement(corr, n_rows, n_cols)
+    with jax.named_scope("peak"):
+        corr_max, s2n = corr_stats(corr)
+        u, v = u_v_displacement(corr, n_rows, n_cols)
     corr_max = corr_max.reshape(-1, n_rows, n_cols)
     s2n = s2n.reshape(-1, n_rows, n_cols)
     return u, v, corr_max, s2n
 
 
 def piv_pairs(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None, corr_method="auto"):
-    """Full per-pair PIV (see _piv_pairs_jit); corr_method 'auto' picks the
-    matmul-DFT path on TPU backends and FFT on CPU."""
-    method = default_corr_method() if corr_method == "auto" else corr_method
-    return _piv_pairs_jit(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, method)
+    """Full per-pair PIV (see _piv_pairs_jit); corr_method 'auto' takes
+    :func:`corr_route`'s choice for the backend."""
+    return _piv_pairs_jit(
+        imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, corr_route(corr_method)
+    )
 
 
 # budget for the materialized correlation-plane tensor of one XLA dispatch;
@@ -458,8 +475,8 @@ def _piv_ensemble_scan_jit(
     reference ffpiv.py:182-376): per pair, planes failing (corr_min, s2n_min)
     are zeroed and excluded from the count; the accumulated mean plane is the
     caller's input to displacement extraction. Uses ``lax.scan`` over pairs
-    so the frame stack streams through VMEM-sized working sets instead of
-    materializing all correlation planes in HBM.
+    so only one pair's correlation planes are live at a time instead of all
+    of them.
 
     Returns (corr_sum [n_windows, wy, wx], corr_count [n_windows],
     corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols]).
@@ -501,8 +518,9 @@ def _piv_ensemble_scan_jit(
 def piv_ensemble_scan(
     imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min=0.2, s2n_min=3.0, signal_threshold=None, corr_method="auto"
 ):
-    """Ensemble PIV (see _piv_ensemble_scan_jit); corr_method 'auto' picks per backend."""
-    method = default_corr_method() if corr_method == "auto" else corr_method
+    """Ensemble PIV (see _piv_ensemble_scan_jit); corr_method 'auto' takes
+    :func:`corr_route`'s choice for the backend."""
     return _piv_ensemble_scan_jit(
-        imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold, method
+        imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold,
+        corr_route(corr_method),
     )

@@ -8,7 +8,7 @@ with the flow, stacked over time, and the dominant streak angle in the
 resulting (time x space) image gives displacement per frame (Fujita et al.
 2007 style gradient-tensor STIV).
 
-TPU-first construction: all search lines are sampled in one batched bilinear
+All search lines are sampled in one batched bilinear
 gather (``map_coordinates`` over a [n_lines, T, L] coordinate set), gradients
 are central differences, and the orientation comes from a closed-form 2x2
 structure-tensor eigen-analysis — one fused jit, no data-dependent control

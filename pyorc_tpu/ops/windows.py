@@ -4,7 +4,7 @@ Replaces the external ``ffpiv.window`` API surface the reference imports
 (reference call sites ``pyorc/api/frames.py:85,167`` and
 ``pyorc/velocimetry/ffpiv.py:120,129``): window-centre grids, even rounding,
 and the memory model used to plan batch sizes. All shapes here are resolved
-at trace time — the TPU kernels see only static shapes.
+at trace time — the device programs see only static shapes.
 
 Grid convention (documented because the external ffpiv package is not
 available to verify bit-for-bit): OpenPIV-compatible —

@@ -2,7 +2,7 @@
 
 SURVEY §2.4 bullet 4: the reference's outermost parallelism is process
 isolation — one video per subprocess (reference
-``pyorc/service/velocimetry.py:796-884``). Across a TPU pod the natural
+``pyorc/service/velocimetry.py:796-884``). Across a cluster the natural
 equivalent keeps DATA off the cross-host network entirely: every host decodes
 and processes its own video (or its own frame segment of one long video) on
 its local chips, and jax.distributed is used for COORDINATION only (global

@@ -24,28 +24,17 @@ from ..ops import windows as win
 __all__ = ["make_mesh", "piv_pairs_sharded", "piv_ensemble_sharded", "piv_multipass_sharded", "piv_pairs_sharded_2d", "pad_pairs_for_devices"]
 
 
-def _pcast_varying(x, axis: str):
-    """Mark an array as varying over a shard_map axis (no-op copy if unsupported)."""
-    try:
-        return jax.lax.pcast(x, (axis,), to="varying")
-    except (AttributeError, TypeError):
-        return x
-
-
 def make_mesh(devices=None, axis: str = "pairs") -> Mesh:
     devices = jax.devices() if devices is None else devices
     return Mesh(np.asarray(devices), (axis,))
 
 
-def pad_pairs_for_devices(imgs: np.ndarray, n_dev: int, zero_pad: bool = False) -> Tuple[np.ndarray, int]:
+def pad_pairs_for_devices(imgs: np.ndarray, n_dev: int) -> Tuple[np.ndarray, int]:
     """Stack frames into per-device overlapping slices [D, P+1, H, W].
 
-    Pads so every device gets the same static shape; padded pairs are
-    dropped by the caller using the returned true pair count. ``zero_pad``
-    pads with ZERO frames instead of repeating the last one — zero frames
-    correlate to an all-zero plane, so in-kernel accumulators (which cannot
-    be sliced after the fact) exclude the padding via their corr/s2n gates
-    rather than counting spurious perfect self-correlations.
+    Pads (repeating the last frame) so every device gets the same static
+    shape; padded pairs are dropped by the caller using the returned true
+    pair count.
     """
     t = imgs.shape[0]
     n_pairs = t - 1
@@ -53,8 +42,7 @@ def pad_pairs_for_devices(imgs: np.ndarray, n_dev: int, zero_pad: bool = False) 
     total = per_dev * n_dev
     pad = total - n_pairs
     if pad > 0:
-        tail = np.zeros_like(imgs[-1:]) if zero_pad else imgs[-1:]
-        imgs = np.concatenate([imgs, np.repeat(tail, pad, axis=0)], axis=0)
+        imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)], axis=0)
     slices = [imgs[d * per_dev : d * per_dev + per_dev + 1] for d in range(n_dev)]
     return np.stack(slices), n_pairs
 
@@ -67,19 +55,11 @@ def piv_pairs_sharded(
     mesh: Optional[Mesh] = None,
     signal_threshold: Optional[float] = None,
     corr_method: str = "auto",
-    engine: str = "auto",
 ):
     """Per-timestep PIV sharded over frame pairs.
 
-    ``engine``: 'auto' uses the fused Pallas kernel per shard on TPU backends
-    and the XLA pipeline elsewhere; 'xla' forces the XLA path; 'fused' forces
-    the kernel; 'fused-interpret' runs the kernel in interpret mode (CPU-mesh
-    testing of the kernel-in-shard_map composition).
-
     Returns (u, v, corr_max, s2n) each [n_pairs, n_rows, n_cols] (numpy).
     """
-    import jax as _jax
-
     mesh = mesh or make_mesh()
     n_dev = mesh.devices.size
     sas = tuple(win._as2(window_size if search_area_size is None else search_area_size))
@@ -87,31 +67,14 @@ def piv_pairs_sharded(
     dim_size = imgs.shape[-2:]
     n_rows, n_cols = win.get_field_shape(dim_size, sas, ov)
     stacked, n_pairs = pad_pairs_for_devices(np.asarray(imgs), n_dev)
-    if engine == "auto":
-        engine = "fused" if _jax.default_backend() not in ("cpu",) else "xla"
+    method = piv_ops.corr_route(corr_method)
 
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=P("pairs"),
-        out_specs=P("pairs"),
-        # no collectives in the per-pair path; pallas_call outputs carry no
-        # varying-mesh-axes annotation, so vma checking must be off
-        check_vma=False,
-    )
+    @functools.partial(jax.shard_map, mesh=mesh, in_specs=P("pairs"), out_specs=P("pairs"))
     def run(frames_dev):
-        # frames_dev: [1, P+1, H, W] on each device
-        if engine.startswith("fused"):
-            from ..ops import piv_pallas
-
-            u, v, cmax, s2n = piv_pallas.piv_pairs_fused(
-                frames_dev[0], dim_size, sas, ov, n_rows, n_cols, signal_threshold,
-                interpret=(engine == "fused-interpret"),
-            )
-        else:
-            u, v, cmax, s2n = piv_ops.piv_pairs(
-                frames_dev[0], dim_size, sas, ov, n_rows, n_cols, signal_threshold, corr_method
-            )
+        # frames_dev: [1, P+1, H, W] on each device; no collectives
+        u, v, cmax, s2n = piv_ops.piv_pairs(
+            frames_dev[0], dim_size, sas, ov, n_rows, n_cols, signal_threshold, method
+        )
         return u[None], v[None], cmax[None], s2n[None]
 
     sharding = NamedSharding(mesh, P("pairs"))
@@ -131,50 +94,20 @@ def piv_ensemble_sharded(
     s2n_min: float = 3.0,
     signal_threshold: Optional[float] = None,
     corr_method: str = "auto",
-    engine: str = "auto",
 ):
     """Ensemble PIV sharded over frame pairs with psum-reduced accumulators.
-
-    ``engine``: 'auto' runs the fused VMEM-resident ensemble kernel per shard
-    on TPU backends (BASELINE config 3 must not downgrade to the XLA scan on
-    a mesh) and the XLA scan elsewhere; 'xla' / 'fused' / 'fused-interpret'
-    force a path. A forced ``corr_method`` keeps the XLA scan (the fused
-    kernel is matmul-DFT only); a fused compile failure warns and falls back.
 
     Returns (corr_sum [n_windows, wy, wx], corr_count [n_windows],
     corr_max [n_pairs, n_rows, n_cols], s2n [n_pairs, n_rows, n_cols]).
     """
-    import jax as _jax
-
     mesh = mesh or make_mesh()
     n_dev = mesh.devices.size
-    if engine == "auto":
-        # only TPU lowers the pltpu kernel; GPU/CPU meshes keep the scan
-        engine = "fused" if _jax.default_backend() == "tpu" else "xla"
-    if engine.startswith("fused") and corr_method != "auto":
-        engine = "xla"  # an explicit correlation method binds only on the scan
-    if engine.startswith("fused"):
-        try:
-            return _piv_ensemble_sharded_fused(
-                imgs, window_size, overlap, search_area_size, mesh, corr_min, s2n_min,
-                signal_threshold, interpret=(engine == "fused-interpret"),
-            )
-        except Exception as e:
-            if "RESOURCE_EXHAUSTED" in str(e) or "Out of memory" in str(e):
-                raise  # the engine's chunk backoff handles device OOM
-            import warnings
-
-            warnings.warn(
-                f"Fused ensemble mesh path failed to compile ({e}); "
-                "falling back to the XLA scan per shard.",
-                stacklevel=2,
-            )
     sas = tuple(win._as2(window_size if search_area_size is None else search_area_size))
     ov = tuple(win._as2(overlap))
     dim_size = imgs.shape[-2:]
     n_rows, n_cols = win.get_field_shape(dim_size, sas, ov)
     stacked, n_pairs = pad_pairs_for_devices(np.asarray(imgs), n_dev)
-    method = piv_ops.default_corr_method() if corr_method == "auto" else corr_method
+    method = piv_ops.corr_route(corr_method)
     per_dev = stacked.shape[1] - 1
     # mask out padded pairs inside the reduction
     pair_valid = (np.arange(n_dev * per_dev) < n_pairs).reshape(n_dev, per_dev)
@@ -214,8 +147,8 @@ def piv_ensemble_sharded(
 
         # carry must be marked device-varying for the scan inside shard_map
         init = (
-            _pcast_varying(jnp.zeros((n_windows, sas[0], sas[1]), dtype=jnp.float32), "pairs"),
-            _pcast_varying(jnp.zeros((n_windows,), dtype=jnp.float32), "pairs"),
+            jax.lax.pcast(jnp.zeros((n_windows, sas[0], sas[1]), dtype=jnp.float32), "pairs", to="varying"),
+            jax.lax.pcast(jnp.zeros((n_windows,), dtype=jnp.float32), "pairs", to="varying"),
         )
         (corr_sum, corr_count), (corr_max, s2n) = jax.lax.scan(step, init, (w[:-1], w[1:], sig_ok))
         # the only collective in the pipeline: all-reduce the ensemble accumulators
@@ -232,55 +165,6 @@ def piv_ensemble_sharded(
     return np.asarray(corr_sum), np.asarray(corr_count), corr_max, s2n
 
 
-def _piv_ensemble_sharded_fused(
-    imgs, window_size, overlap, search_area_size, mesh, corr_min, s2n_min,
-    signal_threshold, interpret,
-):
-    """Fused ensemble kernel per shard + one psum over the accumulators.
-
-    Padding frames are ZEROS: their correlation planes are identically zero,
-    so the kernel's corr_min/s2n_min gates exclude them from the in-VMEM
-    accumulators. With non-positive gates (both thresholds <= 0 and no
-    signal_threshold) zero pairs do pass — their corr contribution is still
-    exactly zero, but the count needs a host-side correction.
-    """
-    from ..ops import piv_pallas
-
-    n_dev = mesh.devices.size
-    sas = tuple(win._as2(window_size if search_area_size is None else search_area_size))
-    ov = tuple(win._as2(overlap))
-    dim_size = imgs.shape[-2:]
-    n_rows, n_cols = win.get_field_shape(dim_size, sas, ov)
-    stacked, n_pairs = pad_pairs_for_devices(np.asarray(imgs), n_dev, zero_pad=True)
-    n_pad = stacked.shape[0] * (stacked.shape[1] - 1) - n_pairs
-
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=P("pairs"),
-        out_specs=(P(), P(), P("pairs"), P("pairs")),
-        # pallas_call outputs carry no varying-mesh-axes annotation
-        check_vma=False,
-    )
-    def run(frames_dev):
-        cs, cc, cmax, s2n = piv_pallas.piv_ensemble_fused(
-            frames_dev[0], dim_size, sas, ov, n_rows, n_cols,
-            corr_min, s2n_min, signal_threshold, interpret=interpret,
-        )
-        cs = jax.lax.psum(cs, "pairs")
-        cc = jax.lax.psum(cc, "pairs")
-        return cs, cc, cmax[None], s2n[None]
-
-    sharding = NamedSharding(mesh, P("pairs"))
-    cs, cc, cmax, s2n = jax.jit(run)(jax.device_put(stacked, sharding))
-    cmax = np.asarray(cmax).reshape(-1, n_rows, n_cols)[:n_pairs]
-    s2n = np.asarray(s2n).reshape(-1, n_rows, n_cols)[:n_pairs]
-    cc = np.asarray(cc, dtype=np.float64)
-    if n_pad and corr_min <= 0 and s2n_min <= 0 and not (signal_threshold and signal_threshold > 0):
-        cc = np.maximum(cc - n_pad, 0.0)  # zero pairs passed the open gates
-    return np.asarray(cs), cc, cmax, s2n
-
-
 def piv_multipass_sharded(
     imgs: np.ndarray,
     window_size: Tuple[int, int],
@@ -290,7 +174,6 @@ def piv_multipass_sharded(
     passes: int = 2,
     signal_threshold: Optional[float] = None,
     corr_method: str = "auto",
-    engine: str = "auto",
 ):
     """Multi-pass deformation PIV sharded over frame pairs.
 
@@ -298,13 +181,7 @@ def piv_multipass_sharded(
     deformation depends only on its own displacement history), so the whole
     cascade runs per shard with no collectives — same halo construction as
     :func:`piv_pairs_sharded` (BASELINE config 4: multi-pass adaptive PIV on
-    a v5e-8 mesh).
-
-    ``engine`` follows :func:`pyorc_tpu.ops.multipass.piv_multipass`:
-    'auto' runs each pass's correlation through the fused Pallas kernel on
-    TPU backends (per shard, inside shard_map) and the XLA cascade on CPU;
-    'fused-interpret' exercises the kernel-in-shard composition on a CPU
-    mesh.
+    a device mesh).
 
     Returns (u, v, corr_max, s2n) each [n_pairs, n_rows, n_cols] (numpy).
     """
@@ -317,20 +194,13 @@ def piv_multipass_sharded(
     dim_size = imgs.shape[-2:]
     n_rows, n_cols = win.get_field_shape(dim_size, sas, ov)
     stacked, n_pairs = pad_pairs_for_devices(np.asarray(imgs), n_dev)
-    method = piv_ops.default_corr_method() if corr_method == "auto" else corr_method
+    method = piv_ops.corr_route(corr_method)
 
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=P("pairs"),
-        out_specs=P("pairs"),
-        check_vma=False,
-    )
+    @functools.partial(jax.shard_map, mesh=mesh, in_specs=P("pairs"), out_specs=P("pairs"))
     def run(frames_dev):
         u, v, cmax, s2n = multipass.piv_multipass(
             frames_dev[0], dim_size, sas, ov, n_rows, n_cols,
-            passes=passes, signal_threshold=signal_threshold,
-            corr_method=method, engine=engine,
+            passes=passes, signal_threshold=signal_threshold, corr_method=method,
         )
         return u[None], v[None], cmax[None], s2n[None]
 
@@ -374,7 +244,7 @@ def piv_pairs_sharded_2d(
     search_area_size: Optional[Tuple[int, int]] = None,
     mesh: Optional[Mesh] = None,
     signal_threshold: Optional[float] = None,
-    engine: str = "auto",
+    corr_method: str = "auto",
 ):
     """Per-timestep PIV over a 2-D (pairs, rows) device mesh.
 
@@ -386,10 +256,6 @@ def piv_pairs_sharded_2d(
 
     Returns (u, v, corr_max, s2n) each [n_pairs, n_rows, n_cols] (numpy).
     """
-    import jax as _jax
-
-    from ..ops import piv as piv_mod
-
     if mesh is None:
         devs = np.asarray(jax.devices())
         mesh = Mesh(devs.reshape(-1, 2), ("pairs", "rows")) if devs.size % 2 == 0 else Mesh(
@@ -401,11 +267,10 @@ def piv_pairs_sharded_2d(
     dim_size = imgs.shape[-2:]
     n_rows, n_cols = win.get_field_shape(dim_size, sas, ov)
     row0, _ = win.get_window_starts(dim_size, sas, ov)
-    step_y = piv_mod._strided_axis_starts(np.asarray(row0), sas[0])
+    step_y = piv_ops._strided_axis_starts(np.asarray(row0), sas[0])
     if step_y is None:
         raise ValueError("2-D sharding needs a uniform strided window grid")
-    if engine == "auto":
-        engine = "fused" if _jax.default_backend() not in ("cpu",) else "xla"
+    method = piv_ops.corr_route(corr_method)
 
     stacked_pairs, n_pairs = pad_pairs_for_devices(np.asarray(imgs), dp)  # [Dp, P+1, H, W]
     slabs, nb_per = pad_rows_for_devices(stacked_pairs, dr, sas[0], step_y, n_rows)
@@ -414,45 +279,17 @@ def piv_pairs_sharded_2d(
     slab_dims = slabs.shape[-2:]
 
     @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=P("pairs", "rows"),
-        out_specs=P("pairs", "rows"),
-        check_vma=False,
+        jax.shard_map, mesh=mesh, in_specs=P("pairs", "rows"), out_specs=P("pairs", "rows")
     )
     def run(frames_dev):
         frames = frames_dev[0, 0]  # [P+1, Hs, W]
-        if engine.startswith("fused"):
-            from ..ops import piv_pallas
-
-            u, v, cmax, s2n = piv_pallas.piv_pairs_fused(
-                frames, slab_dims, sas, ov, nb_per, n_cols, signal_threshold,
-                interpret=(engine == "fused-interpret"),
-            )
-        else:
-            u, v, cmax, s2n = piv_mod.piv_pairs(
-                frames, slab_dims, sas, ov, nb_per, n_cols, signal_threshold
-            )
+        u, v, cmax, s2n = piv_ops.piv_pairs(
+            frames, slab_dims, sas, ov, nb_per, n_cols, signal_threshold, method
+        )
         return u[None, None], v[None, None], cmax[None, None], s2n[None, None]
 
     sharding = NamedSharding(mesh, P("pairs", "rows"))
-    slabs_dev = jax.device_put(slabs, sharding)
-    try:
-        u, v, cmax, s2n = jax.jit(run)(slabs_dev)
-    except Exception as e:
-        # inside jit+shard_map the kernel's own retry/fallback never fires
-        # (lowering errors surface at the OUTER compile) — degrade here
-        if engine == "xla" or "RESOURCE_EXHAUSTED" in str(e):
-            raise
-        import warnings
-
-        warnings.warn(
-            f"Fused kernel failed under the 2-D mesh ({e}); retrying with the XLA path.",
-            stacklevel=2,
-        )
-        return piv_pairs_sharded_2d(
-            imgs, window_size, overlap, search_area_size, mesh, signal_threshold, engine="xla"
-        )
+    u, v, cmax, s2n = jax.jit(run)(jax.device_put(slabs, sharding))
 
     def fix(a):
         a = np.asarray(a)  # [Dp, Dr, P, nb_per, n_cols]

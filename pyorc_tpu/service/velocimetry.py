@@ -650,6 +650,13 @@ def velocity_flow_subprocess(
     Inputs are serialized into ``output`` first (recipe YAML, camera-config
     JSON, optional cross-section GeoJSONs) so the child is fully
     self-contained — the embedding pattern external applications use.
+
+    Each call starts one JAX process per video; this parent runs no JAX
+    computation (importing JAX reserves no device memory), so the child is
+    the only process on the card. A JAX process
+    reserves three quarters of a GPU's memory when it starts, so several
+    children launched at once on one card need their shares set with
+    ``XLA_PYTHON_CLIENT_MEM_FRACTION`` in their environment.
     """
     logger.info(f"spawning pipeline subprocess for {videofile}")
     os.makedirs(output, exist_ok=True)

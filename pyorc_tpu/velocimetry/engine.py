@@ -17,6 +17,7 @@ documented meaning ("minimum amount of frame pairs").
 
 from __future__ import annotations
 
+import logging
 import warnings
 from typing import Optional, Tuple
 
@@ -27,6 +28,8 @@ from ..ops import piv as piv_ops
 from ..ops import windows as win
 
 __all__ = ["get_piv"]
+
+logger = logging.getLogger(__name__)
 
 
 def _chunk_plan(n_frames, dim_size, window_size, overlap, search_area_size, chunksize, memory_factor):
@@ -45,20 +48,6 @@ def _chunk_plan(n_frames, dim_size, window_size, overlap, search_area_size, chun
     if chunksize < 2:
         raise OverflowError("Chunk size must be at least 2 frames.")
     return int(chunksize)
-
-
-def _engine_mode():
-    """Optional engine override from PYORC_TPU_ENGINE.
-
-    Accepted: "xla" (force the XLA pipeline), "fused" (force the Pallas
-    kernel), "fused-interpret" (kernel in interpret mode — lets CPU-backend
-    tests drive the exact kernel code paths real configs use on TPU).
-    Anything else (or unset) keeps the backend-based auto choice.
-    """
-    import os
-
-    mode = os.environ.get("PYORC_TPU_ENGINE")
-    return mode if mode in ("xla", "fused", "fused-interpret") else None
 
 
 def _shard_enabled() -> bool:
@@ -234,7 +223,7 @@ def get_piv(
 def _maybe_profile():
     """jax.profiler trace around the PIV loop when PYORC_TPU_PROFILE=<dir>.
 
-    SURVEY §5: the reference has no profiling beyond tqdm; the TPU build
+    SURVEY §5: the reference has no profiling beyond tqdm; this build
     exposes the XLA profiler (view the trace with TensorBoard or Perfetto).
     """
     import contextlib
@@ -254,34 +243,22 @@ def _piv_timestep(
 ):
     import jax
 
-    from tqdm import tqdm
+    from ..ops import multipass
 
-    from ..ops import multipass, piv_pallas
-
-    # the fused Pallas kernel is the fast path on TPU backends; the XLA
-    # pipeline covers CPU and non-strided window grids. Multi-pass runs
-    # route their per-pass correlations through the kernel too.
-    mode = _engine_mode()
-    use_fused = (
-        mode.startswith("fused") if mode else jax.default_backend() not in ("cpu",)
-    )
-    interpret = mode == "fused-interpret"
+    corr_method = piv_ops.corr_route()
     dt_vals = np.asarray(dt.values if hasattr(dt, "values") else dt, dtype=np.float64)
     us, vs, cms, s2ns = [], [], [], []
-    pbar = tqdm(total=data.shape[0] - 1, desc="PIV (per frame pair)", position=0, leave=True)
+    n_pairs_total = data.shape[0] - 1
     use_sharded = _shard_enabled()
 
     def run_one(frames_np):
         if use_sharded:
             from .. import parallel
 
-            # PYORC_TPU_ENGINE must bind on sharded paths too (the sharded
-            # wrappers resolve 'auto' per shard; an explicit mode overrides)
-            shard_engine = mode or "auto"
             if passes > 1:
                 return parallel.piv_multipass_sharded(
                     _as_host(frames_np), sas, ov, sas, passes=passes,
-                    signal_threshold=signal_threshold, engine=shard_engine,
+                    signal_threshold=signal_threshold, corr_method=corr_method,
                 )
             host = _as_host(frames_np)
             plan = _plan_mesh2d(host.shape[0] - 1, n_rows, jax.device_count())
@@ -293,37 +270,35 @@ def _piv_timestep(
                 try:
                     return parallel.piv_pairs_sharded_2d(
                         host, sas, ov, sas, mesh=mesh2d, signal_threshold=signal_threshold,
-                        engine=shard_engine,
+                        corr_method=corr_method,
                     )
                 except ValueError:
                     pass  # non-uniform window grid: fall through to the 1-D mesh
             return parallel.piv_pairs_sharded(
-                host, sas, ov, sas, signal_threshold=signal_threshold, engine=shard_engine
+                host, sas, ov, sas, signal_threshold=signal_threshold, corr_method=corr_method
             )
         dev = _as_device(frames_np)
         if passes > 1:
             return multipass.piv_multipass(
                 dev, dim_size, sas, ov, n_rows, n_cols, passes=passes,
-                signal_threshold=signal_threshold,
-                engine=(mode or ("fused" if use_fused else "xla")),
-            )
-        if use_fused:
-            return piv_pallas.piv_pairs_fused(
-                dev, dim_size, sas, ov, n_rows, n_cols, signal_threshold, interpret=interpret
+                signal_threshold=signal_threshold, corr_method=corr_method,
             )
         # strip-wise dispatch caps the materialized correlation tensor, which
         # lets small-window configs (geul 16 px at 1080p) run on the CPU
         # backend instead of compile-OOMing in one giant program
-        return piv_ops.piv_pairs_strips(dev, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
+        return piv_ops.piv_pairs_strips(
+            dev, dim_size, sas, ov, n_rows, n_cols, signal_threshold, corr_method
+        )
 
+    done = 0
     for start, chunk in _iter_chunks(data, chunksize):
         u, v, cmax, s2n = _run_chunk_oom_backoff(run_one, chunk)
         us.append(np.asarray(u))
         vs.append(np.asarray(v))
         cms.append(np.asarray(cmax))
         s2ns.append(np.asarray(s2n))
-        pbar.update(chunk.shape[0] - 1)
-    pbar.close()
+        done += chunk.shape[0] - 1
+        logger.info("PIV (per frame pair): %d/%d pairs", done, n_pairs_total)
     u = np.concatenate(us, axis=0)
     v = np.concatenate(vs, axis=0)
     cmax = np.concatenate(cms, axis=0)
@@ -338,21 +313,13 @@ def _piv_ensemble(
     data, time_all, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
     chunksize, corr_min, s2n_min, count_min, signal_threshold, attrs,
 ):
-    import jax
-
-    from tqdm import tqdm
-
+    corr_method = piv_ops.corr_route()
     corr_sum = 0.0
     corr_count = 0.0
     cms, s2ns = [], []
     n_pairs_total = data.shape[0] - 1
-    pbar = tqdm(total=n_pairs_total, desc="PIV (ensemble)", position=0, leave=True)
     use_sharded = _shard_enabled()
-    mode = _engine_mode()
-    use_fused = (
-        mode.startswith("fused") if mode else jax.default_backend() not in ("cpu",)
-    )
-    interpret = mode == "fused-interpret"
+    done = 0
     for start, chunk in _iter_chunks(data, chunksize):
         if use_sharded:
             from .. import parallel
@@ -360,33 +327,19 @@ def _piv_ensemble(
             cs, cc, cmax, s2n = parallel.piv_ensemble_sharded(
                 _as_host(chunk), sas, ov, sas,
                 corr_min=corr_min, s2n_min=s2n_min, signal_threshold=signal_threshold,
-                engine=mode or "auto",
-            )
-        elif use_fused:
-            from ..ops import piv_pallas
-
-            cs, cc, cmax, s2n = piv_pallas.piv_ensemble_fused(
-                _as_device(chunk), dim_size, sas, ov, n_rows, n_cols,
-                corr_min, s2n_min, signal_threshold, interpret=interpret,
+                corr_method=corr_method,
             )
         else:
             cs, cc, cmax, s2n = piv_ops.piv_ensemble_scan(
-                _as_device(chunk),
-                dim_size,
-                sas,
-                ov,
-                n_rows,
-                n_cols,
-                corr_min,
-                s2n_min,
-                signal_threshold,
+                _as_device(chunk), dim_size, sas, ov, n_rows, n_cols,
+                corr_min, s2n_min, signal_threshold, corr_method,
             )
         corr_sum = corr_sum + np.asarray(cs)
         corr_count = corr_count + np.asarray(cc)
         cms.append(np.asarray(cmax))
         s2ns.append(np.asarray(s2n))
-        pbar.update(chunk.shape[0] - 1)
-    pbar.close()
+        done += chunk.shape[0] - 1
+        logger.info("PIV (ensemble): %d/%d pairs", done, n_pairs_total)
     cmax_all = np.concatenate(cms, axis=0)
     s2n_all = np.concatenate(s2ns, axis=0)
     with warnings.catch_warnings():

@@ -43,44 +43,3 @@ def test_api_reference_covers_accessors():
         "`to_ugrid`",  # writers
     ]:
         assert needle in text, f"API reference is missing {needle}"
-
-
-def test_architecture_perf_block_is_current():
-    """ARCHITECTURE §8's measured numbers are machine-written from the newest
-    committed BENCH_FULL_r*.json (rounds 3 and 4 both shipped stale, mutually
-    contradictory perf narratives — this makes that structurally impossible).
-    Regenerate and compare: a new artifact without `python docs/gen_perf.py`
-    fails here."""
-    spec = importlib.util.spec_from_file_location(
-        "gen_perf", os.path.join(DOCS, "gen_perf.py")
-    )
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    fresh = mod.generate()
-    with open(os.path.join(DOCS, "..", "ARCHITECTURE.md")) as f:
-        committed = f.read()
-    assert fresh == committed, (
-        "ARCHITECTURE.md perf block is stale — run `python docs/gen_perf.py` "
-        "and commit the result"
-    )
-
-
-def test_architecture_perf_block_reflects_artifact_values():
-    """Spot-check: the generated block quotes the artifact's numbers."""
-    import glob
-    import json
-    import re
-
-    root = os.path.join(DOCS, "..")
-    paths = glob.glob(os.path.join(root, "BENCH_FULL_r*.json"))
-    newest = max(paths, key=lambda p: int(re.search(r"r(\d+)", os.path.basename(p)).group(1)))
-    with open(newest) as f:
-        bench = json.load(f)
-    with open(os.path.join(root, "ARCHITECTURE.md")) as f:
-        arch = f.read()
-    block = arch.split("BEGIN GENERATED perf-block")[1].split("END GENERATED")[0]
-    assert os.path.basename(newest) in block
-    assert str(bench["value"]) in block
-    for cfg in bench["ensemble"].values():
-        assert str(cfg["pairs_per_sec"]) in block
-        assert cfg["route"] in block

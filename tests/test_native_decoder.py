@@ -1,7 +1,7 @@
 """Native FFmpeg decode pump: cv2 agreement, seek consistency, Video wiring.
 
 The native decoder (native/decoder.cpp via pyorc_tpu.io.native_decoder) is the
-TPU build's batch decode fast path, replacing the reference's per-frame
+batch decode fast path, replacing the reference's per-frame
 cv2.VideoCapture loop (reference pyorc/api/video.py:136-211). These tests are
 skipped when FFmpeg dev libraries / a compiler are unavailable.
 """

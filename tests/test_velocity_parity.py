@@ -125,30 +125,27 @@ def test_roundtrip_decode_matches(synthetic_video):
 
 
 @pytest.mark.parametrize(
-    "window_size,engine_mode,tol",
+    "window_size,tol",
     [
-        (32, None, 0.02),  # XLA pipeline (CPU default)
-        (26, "fused-interpret", 0.02),  # ngwerere's shipped config -> tileband kernel
+        (32, 0.02),
+        (26, 0.02),  # ngwerere's shipped config
         # 16 px: the 2.3 px/frame shift is 14% of the window, where the
-        # single-pass estimator's truncation bias reaches ~0.4 px (verified
-        # identical between the tileband kernel and the XLA pipeline to
-        # 3e-5 m/s; the reference's 3-point Gaussian estimator shares it)
-        (16, "fused-interpret", 0.03),
+        # single-pass estimator's truncation bias reaches ~0.4 px (the
+        # reference's 3-point Gaussian estimator shares it)
+        (16, 0.03),
     ],
     ids=["32px-xla", "26px-tileband", "16px-tileband"],
 )
 def test_full_pipeline_velocity_parity(
-    synthetic_video, nadir_camera_config, monkeypatch, window_size, engine_mode, tol
+    synthetic_video, nadir_camera_config, monkeypatch, window_size, tol
 ):
     """Video -> project -> get_piv median velocity against analytic truth, at
     every window size a reference recipe ships (VERDICT r2 item 5): 26 px
-    (ngwerere) and 16 px (geul) drive the tileband Pallas kernel in interpret
-    mode — the exact code path real configs take on TPU hardware."""
+    (ngwerere) and 16 px (geul), all on the XLA route. The ids keep the
+    names of the Pallas kernel these cases once drove."""
     import pyorc_tpu
 
-    if engine_mode is not None:
-        monkeypatch.setenv("PYORC_TPU_ENGINE", engine_mode)
-    monkeypatch.setenv("PYORC_TPU_SHARD", "0")  # single-device: kernel path, not mesh
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")  # single-device path, not the mesh
     cc = nadir_camera_config
     video = pyorc_tpu.Video(
         synthetic_video, camera_config=cc, start_frame=0, end_frame=N_FRAMES - 1, h_a=0.0
